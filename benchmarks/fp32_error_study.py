@@ -23,9 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from cfd_julia_tpu.jaxconfig import configure_jax
+from cfd_julia_tpu.jaxconfig import configure_cache, pin_platform
 
-configure_jax(cache_dir="~/.cache/jax_test_cache", platform="cpu")
+pin_platform("cpu")
+configure_cache()
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402

@@ -7,7 +7,7 @@ workers measure (psi_min / psi_l2 for the cavity, wmax / enstrophy for
 ps23).  bench.py compares every raced variant against these within
 rel_tol (default 1%) — legitimate variants differ by <=4e-4 (fp32) /
 2e-5 (bf16x3), so the gate only fires on genuinely wrong numerics
-(BASELINE.md fp32 study, docs/PERF.md precision bound).
+(BASELINE.md fp32 study, PERF.md precision findings).
 
     python benchmarks/gen_physics_anchors.py [--quick-only]
 
@@ -24,9 +24,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cfd_julia_tpu.jaxconfig import configure_jax  # noqa: E402
+from cfd_julia_tpu.jaxconfig import configure_cache, pin_platform  # noqa: E402
 
-configure_jax(cache_dir="~/.cache/jax_test_cache", platform="cpu")
+pin_platform("cpu")
+configure_cache()
 
 import jax  # noqa: E402
 

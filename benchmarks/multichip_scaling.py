@@ -1,34 +1,50 @@
-"""Multi-chip scaling harness: times the sharded cavity and spectral
+"""Multi-device scaling harness: times the sharded cavity and spectral
 vortex steps on an n-device mesh vs the single-device step.
 
-On this image only virtual CPU devices exist (the driver validates the
-same paths via __graft_entry__.dryrun_multichip); on a real TPU pod the
-same script reports the actual scaling curve.
+Rehearse on virtual CPU devices (not a speed measurement):
 
-    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python benchmarks/multichip_scaling.py --nx 256 --devices 1,2,4,8
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+        python benchmarks/multichip_scaling.py --nx 256 --devices 1,2,4
 
-One JSON line per (problem, n_devices).
+One JSON line per (problem, n_devices), naming the device it ran on.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
-from cfd_julia_tpu.jaxconfig import configure_jax
+from cfd_julia_tpu.jaxconfig import configure_cache, pin_platform
 
-configure_jax(cache_dir="~/.cache/jax_bench_cache", min_compile_secs=1.0)
+pin_platform()
+configure_cache()
 
-# the canonical scan-window timer (warm-up, additive perturb with host
-# sync, min over repeats) — one methodology, one implementation
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from tpu_microbench import timed  # noqa: E402
+
+def timed(name, fn, x, iters=20, repeats=3):
+    """ms per application of fn: `iters` applications under one scan,
+    median of `repeats` windows, each ended by block_until_ready."""
+    run = jax.jit(lambda x0: lax.scan(lambda c, _: (fn(c), None), x0,
+                                      None, length=iters)[0])
+    x = jax.block_until_ready(run(x))           # compile + warm up
+    windows = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        x = jax.block_until_ready(run(x))
+        windows.append(time.perf_counter() - t0)
+    windows.sort()
+    dev = jax.devices()[0]
+    print(json.dumps({"name": name, "ms_per_step":
+                      1e3 * windows[len(windows) // 2] / iters,
+                      "platform": dev.platform, "kind": dev.device_kind}),
+          flush=True)
 
 
 def bench_point(nx: int, ndev: int):
@@ -50,7 +66,6 @@ def bench_point(nx: int, ndev: int):
 
     vcfg = vortex.VortexConfig(nx=nx, ny=nx, solver="ps23", dt=1e-3)
     vstep = sharded.make_sharded_vortex_step(vcfg, mesh, jnp.float32)
-    # packed real boundary (complex64 jit params poison the TPU client)
     hf0 = jax.device_put(
         jax.jit(lambda w: spectral.pack_c(
             jnp.fft.fft2(w.astype(jnp.complex64))))(
@@ -58,7 +73,7 @@ def bench_point(nx: int, ndev: int):
         sharded.packed_full_sharding(mesh))
     timed(f"sharded_ps23_{nx}_dev{ndev}", vstep, hf0)
 
-    # the half-spectrum packed fast path (round-3 mesh extension)
+    # the half-spectrum packed fast path
     hstep = sharded.make_sharded_vortex_step_half(vcfg, mesh, jnp.float32)
     h0 = jax.device_put(
         jax.jit(vortex.half_init_packed)(
@@ -70,7 +85,7 @@ def bench_point(nx: int, ndev: int):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nx", type=int, default=256)
-    ap.add_argument("--devices", default="1,2,4,8")
+    ap.add_argument("--devices", default="1,2,4")
     args = ap.parse_args()
     avail = len(jax.devices())
     print(f"# {avail} devices ({jax.devices()[0].platform})",

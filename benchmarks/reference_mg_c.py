@@ -3,7 +3,7 @@ algorithm (N-level V-cycle, lexicographic Gauss-Seidel smoothing,
 full-weighting restriction, bilinear prolongation; mg_N.jl:7-114) with
 every loop as single-thread C (-O3), timed end to end on the bench
 problem (4096^2 ``poly``, solve to rms/rms0 <= 1e-5 — the exact
-configuration bench.py's mg worker times on the TPU).
+configuration bench.py's mg worker times on the GPU).
 
     python benchmarks/reference_mg_c.py [--nx 4096] [--tol 1e-5]
 

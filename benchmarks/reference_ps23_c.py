@@ -1,4 +1,4 @@
-"""C-compiled reference-ps23 denominator (VERDICT r4 item 8): the ch. 22
+"""C-compiled reference-ps23 denominator: the ch. 22
 pseudospectral 2/3-rule ALGORITHM (pseudospectral_23_rule.jl:95-144 —
 15 complex 2D transforms per 3-stage step) with every non-transform
 loop as single-thread C at -O3 (benchmarks/native/ref_kernels.c

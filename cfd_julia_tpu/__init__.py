@@ -1,6 +1,6 @@
-"""cfd_julia_tpu — a TPU-native CFD simulation engine built on JAX/XLA/Pallas.
+"""cfd_julia_tpu — a CFD simulation engine built on JAX/XLA.
 
-A ground-up, TPU-first re-design of the capability surface of the CFD_Julia
+A ground-up, accelerator-first re-design of the capability surface of the CFD_Julia
 coursework collection (22 solver scripts, reference: t-bltg/CFD_Julia):
 
 * 1D parabolic:   heat equation — FTCS, SSP-RK3, Crank–Nicolson, implicit
@@ -19,7 +19,7 @@ coursework collection (22 solver scripts, reference: t-bltg/CFD_Julia):
                   pseudospectral with 3/2- and 2/3-rule dealiasing
                   (reference ch. 18–22).
 
-Design principles (TPU-first, not a translation):
+Design principles (data-parallel first, not a translation):
 
 * Everything device-resident: time loops are `lax.scan` / `lax.while_loop`
   with zero host round-trips per step; snapshots stack as scan outputs.
@@ -28,7 +28,7 @@ Design principles (TPU-first, not a translation):
   Gauss–Seidel -> red-black relaxation; `@unroll` loops -> fused array ops.
 * FFTW r2r (DST-I) -> odd-extension `rfft` (XLA has no r2r transforms).
 * Static shapes throughout; multigrid pyramids are statically unrolled.
-* fp32 by default on TPU, fp64 toggle for accuracy parity (`precision`).
+* fp32 by default on the GPU, fp64 toggle for accuracy parity (`precision`).
 * Multi-chip scaling by 2D domain decomposition over a `jax.sharding.Mesh`
   (halo exchange for stencils, transpose-based distributed FFT), in
   `cfd_julia_tpu.parallel`.

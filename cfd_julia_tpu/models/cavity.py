@@ -31,49 +31,22 @@ from cfd_julia_tpu.ops import arakawa
 from cfd_julia_tpu.poisson import direct
 
 
-def _poisson_choice(name: str, backend: str | None = None, *,
+def _poisson_choice(name: str, platform: str | None = None, *,
                     single_device: bool = True,
                     allow_fused: bool = False) -> str:
-    """Resolve poisson="auto" to the measured winner for the backend.
-
-    On TPU the measured certified-tier winner is the interior-padded
-    FUSED formulation at the 3-pass-bf16 tier (fused_bf16x3 1098.0
-    steps/s at the north-star 1024^2, round-5 solo race
-    benchmarks/results/fused_race_20260819T041823.log — vs
-    matmul_bf16x3+pallas 944; trajectory pinned to the full-grid step
-    by tests/test_cavity_fused.py and certified fp32-grade over the
-    full reference run, BASELINE.md round-5 study).  The fused step
-    carries a packed state, so only solve() (allow_fused=True) may
-    resolve to it; make_step_fn's auto stays the best full-grid-state
-    variant (matmul_bf16x3, 868 steps/s with the XLA RHS).  Off-TPU
-    the precision knob is a no-op and the rfft DST-I avoids
-    materializing dense sine matrices.  benchmarks/results/winners.json
-    records the measurements; tests/test_autoselect.py asserts this
-    resolver agrees with them."""
+    """Resolve poisson="auto" from policy.py.  Mesh runs take the
+    pencil-shardable rfft DST ("fst"); the packed-state fused step is
+    open only to solve() (allow_fused=True), since make_step_fn carries
+    the full-grid state."""
     if name != "auto":
         return name
     if not single_device:
-        return "fst"  # mesh runs need the pencil-shardable DST; the
-                      # matmul/fused winners are single-device only
-    backend = backend or jax.default_backend()
-    if backend != "tpu":
         return "fst"
-    return "fused_bf16x3" if allow_fused else "matmul_bf16x3"
+    from cfd_julia_tpu import policy
 
-
-def _rhs_choice(name: str, backend: str | None = None, *,
-                static_re: bool = True, single_device: bool = True) -> str:
-    """Resolve rhs_impl="auto": the fused Pallas Arakawa+Laplacian slab is
-    the measured TPU winner (938.2 vs 866.5 steps/s with the same solver,
-    round-4 full bench), but it bakes re in and is single-device, so auto
-    falls back to the XLA RHS for traced re, mesh runs, or other
-    backends (where Pallas would run interpreted)."""
-    if name != "auto":
-        return name
-    backend = backend or jax.default_backend()
-    if backend == "tpu" and static_re and single_device:
-        return "pallas"
-    return "xla"
+    return policy.choice(
+        "cavity_solve_poisson" if allow_fused else "cavity_poisson",
+        platform)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,38 +57,23 @@ class CavityConfig:
     t_final: float = 10.0
     re: float = 100.0
     bc_order: int = 2        # 1 = Hoffmann, 2 = Jensen (reference default)
-    poisson: str = "auto"    # auto (measured winner for the backend:
-                             # matmul_bf16x3 on TPU, fst elsewhere — see
-                             # _poisson_choice) |
+    poisson: str = "auto"    # auto (policy.py, per platform; resolved
+                             # when the step is built) |
                              # fst (DST-I via odd-extension rfft) |
                              # fst_half (DST-I via the half-length rfft +
-                             # pre/post passes) | matmul (dense MXU sine
+                             # pre/post passes) | matmul (dense sine-matrix
                              # transform; _bf16x3 = 3-pass bf16 tier,
-                             # _bf16x1 = single-pass bf16) |
-                             # fst_mxu (DST-I via the
-                             # four-step MXU matmul FFT) | fst_half_mxu
-                             # (half-length rfft on the MXU) — same
-                             # eigenvalues and results; TPU microbench picks
+                             # _bf16x1 = single-pass bf16, see
+                             # core.precision) | fst_mxu (DST-I via the
+                             # four-step matmul FFT) | fst_half_mxu
+                             # (half-length rfft as matmuls) — same
+                             # eigenvalues and results
                              # | fused / fused_bf16x3 / fused_bf16x1 — the
                              # interior-padded fused formulation
                              # (models.cavity_fused, packed state; routed
                              # by solve(), not make_step_fn)
-    fft_precision: str = "highest"   # matmul-FFT impls: "highest"
-                             # (fp32-exact) | "high" (3-pass bf16, 2x MXU)
-    rhs_impl: str = "auto"   # auto (pallas on TPU with static re,
-                             # xla elsewhere — see _rhs_choice) | xla |
-                             # pallas — the fused single-slab
-                             # Arakawa+Laplacian kernel; its periodic wrap
-                             # rows are discarded (only the interior of
-                             # the RHS is used), so it matches exactly
-    # BACKEND-DEPENDENT NUMERICS (ADVICE r4): both "auto" fields resolve
-    # against jax.default_backend() AT make_step_fn TIME, so the same
-    # default config runs different algorithms AND precision tiers per
-    # backend (bf16x3 matmul + Pallas RHS on TPU vs fp32 fst + XLA on
-    # CPU; trajectory deltas ~5e-6 rel, inside the physics anchors).  A
-    # step fn built under one backend and executed under
-    # jax.default_device of another gets the build-time variant — pin
-    # poisson/rhs_impl explicitly for cross-backend reproducibility.
+    fft_precision: str = "highest"   # matmul-FFT impls: a core.precision
+                             # tier (highest | high | default)
 
     @property
     def dx(self) -> float:
@@ -199,7 +157,7 @@ def _wall_bc_fields(s, dx: float, dy: float, order: int):
 def make_padded_step_fn(cfg: CavityConfig, padded_shape):
     """Cavity step on mesh-divisible padded (P, Q) fields — the multi-chip
     formulation.  Same math as make_step_fn, but pure dataflow: rolls +
-    masks for the RHS/BC assembly and the MXU-matmul DST for the Poisson
+    masks for the RHS/BC assembly and the dense-matmul DST for the Poisson
     solve, so GSPMD partitions every op in place (the slice/concat/pad
     assembly of the logical-grid step forces involuntary full
     rematerialization of edge tensors under a 2D sharding).
@@ -249,32 +207,13 @@ def make_padded_step_fn(cfg: CavityConfig, padded_shape):
 def make_step_fn(cfg: CavityConfig, mesh=None, re=None):
     """Cavity step.  `re` overrides cfg.re and may be a JAX tracer — the
     step is then differentiable w.r.t. the Reynolds number
-    (tests/test_autodiff.py, examples/adjoint_cavity.py); the Pallas RHS
-    bakes re into the kernel, so it requires the static cfg value."""
+    (tests/test_autodiff.py, examples/adjoint_cavity.py)."""
     dx, dy, dt = cfg.dx, cfg.dy, cfg.dt
-    re_is_static = re is None
     re = cfg.re if re is None else re
-    rhs_impl = _rhs_choice(cfg.rhs_impl, static_re=re_is_static,
-                           single_device=mesh is None)
     poisson = _poisson_choice(cfg.poisson, single_device=mesh is None)
 
-    if rhs_impl == "pallas":
-        if mesh is not None:
-            raise ValueError(
-                "rhs_impl='pallas' is single-device only (the mesh-aware "
-                "step shards the XLA RHS)")
-        if not re_is_static:
-            raise ValueError(
-                "rhs_impl='pallas' requires the static cfg.re (the fused "
-                "kernel bakes it in); use rhs_impl='xla' for traced re")
-        from cfd_julia_tpu.ops import pallas_kernels
-
-        def rhs_interior(w, s):
-            return pallas_kernels.arakawa_rhs_fused(
-                w, s, dx, dy, re)[1:-1, 1:-1]
-    else:
-        def rhs_interior(w, s):
-            return arakawa.vorticity_rhs(w, s, dx, dy, re)[1:-1, 1:-1]
+    def rhs_interior(w, s):
+        return arakawa.vorticity_rhs(w, s, dx, dy, re)[1:-1, 1:-1]
 
     if poisson in ("fused", "fused_bf16x3", "fused_bf16x1"):
         raise ValueError(
@@ -292,43 +231,21 @@ def make_step_fn(cfg: CavityConfig, mesh=None, re=None):
             f"poisson={poisson!r} is single-device only; the mesh-"
             "aware step uses poisson='fst'/'fst_half' (pencil DST) or "
             "make_padded_step_fn (matmul DST with native sharding)")
-    if (poisson in ("fst_half", "fst_half_mxu") and rhs_impl == "xla"
-            and jax.default_backend() == "tpu"):
-        # CONFIRMED XLA:TPU miscompile (round-5 bisection, docs/PERF.md +
-        # benchmarks/fsthalf_repro*.py): with two different-axis
-        # half-length DSTs downstream, the UPSTREAM program (the
-        # identically-defined RHS/BC prefix) compiles to values 14% off;
-        # optimization_barriers at every seam do not fix it (the
-        # corruption is module-shape-dependent, not a fusion seam), so
-        # there is no safe form of this combination.  The Pallas-RHS
-        # step with the same solver passes the physics gate (its custom
-        # call changes the module shape), as do CPU runs.
-        raise ValueError(
-            "poisson='fst_half'/'fst_half_mxu' with the XLA RHS is "
-            "disabled on the TPU backend: a confirmed backend miscompile "
-            "corrupts the step (psi 14-19% off; see docs/PERF.md round-5 "
-            "'fst_half miscompile' and benchmarks/fsthalf_repro*.py). "
-            "Use rhs_impl='pallas' or a matmul/fst solver.")
     if poisson in ("matmul", "matmul_bf16x3", "matmul_bf16x1"):
         # interior-aligned matmul solver: reads the interior, returns
-        # exact-zero walls — same contract as solve_fst, with dot
-        # operands MXU-tile-aligned (1023 -> 1024 lanes instead of
-        # 1025 -> 1152; ~26% less MXU work at 1024^2).  Precision tiers:
-        # highest = fp32-exact (6-pass bf16), high = 3-pass bf16
-        # (~1e-6 rel transform error), default = single-pass bf16
-        # (~2e-3 rel — raced only behind the bench's 1% physics anchors,
-        # which reject any trajectory deviation past the fp32 study
-        # bound's order of magnitude)
+        # exact-zero walls — same contract as solve_fst.  Precision tiers
+        # (core.precision): highest = fp32 products, high = 3-pass bf16,
+        # default = single-pass bf16
         prec = {"matmul_bf16x3": "high",
                 "matmul_bf16x1": "default"}.get(poisson, "highest")
         solve = lambda f: direct.solve_fst_matmul_interior(
             f, cfg.nx, cfg.ny, dx, dy, mm_precision=prec)
     elif poisson == "fst_half_mxu":
-        # half-length DST with its rfft on the MXU
+        # half-length DST with its rfft as matmuls
         solve = lambda f: direct.solve_fst(f, dx, dy, impl="half_mxu",
                                            precision=cfg.fft_precision)
     elif poisson == "fst_mxu":
-        # odd-extension DST through the four-step MXU FFT
+        # odd-extension DST through the four-step matmul FFT
         solve = lambda f: direct.solve_fst(f, dx, dy, impl="matmul",
                                            precision=cfg.fft_precision)
     elif poisson == "fst_half":
@@ -378,9 +295,8 @@ def _run(cfg: CavityConfig, w0, s0, nt: int):
         # (tests/test_cavity_fused.py::test_pack_midrun_state_...)
         from cfd_julia_tpu.models import cavity_fused
 
-        mmp = {"fused": "highest", "fused_bf16x3": "high",
-               "fused_bf16x1": "default"}[cfg.poisson]
-        step = cavity_fused.make_fused_step_fn(cfg, mm_precision=mmp)
+        step = cavity_fused.make_fused_step_fn(
+            cfg, mm_precision=cavity_fused.FUSED_TIERS[cfg.poisson])
 
         def body_f(state, _):
             state = step(state)

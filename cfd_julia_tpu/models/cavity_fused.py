@@ -1,4 +1,4 @@
-"""Lid-driven cavity — fused interior-padded formulation (TPU fast path).
+"""Lid-driven cavity — fused interior-padded formulation.
 
 Same math as models.cavity.make_step_fn (reference ch. 18,
 lid_driven_cavity.jl:58-118), reorganized so the hot loop never touches a
@@ -7,8 +7,8 @@ misaligned array:
 * State holds the (nx-1, ny-1) INTERIOR of w and psi inside buffers padded
   UP to (8k, 128k) tile extents — at the north-star 1024^2 that is a
   1024x1024 buffer (vs the 1025x1025 full grid, whose every [1:-1] slice /
-  concat / pad is an offset-by-one relayout pass on TPU, and whose matmul
-  operands tile to 1152 lanes: ~+26% wasted MXU work).
+  concat / pad is an offset-by-one relayout pass, and whose matmul
+  operands are one row and column off a power of two).
 * Wall vorticity enters the Arakawa/Laplacian stencils as four O(n) wall
   VECTORS (lid_driven_cavity.jl:24-51) applied with `where` masks on the
   zero-fill shifts — XLA fuses the whole RHS + RK combine + wall
@@ -40,6 +40,7 @@ from functools import partial
 import jax.numpy as jnp
 from jax import lax
 
+from cfd_julia_tpu.core import precision
 from cfd_julia_tpu.poisson.direct import _sine_entries
 
 
@@ -75,6 +76,11 @@ def _vshift(v, d: int, L: int, corner):
     k = jnp.arange(v.shape[0])
     exposed = (k == L - 1) if d > 0 else (k == 0)
     return jnp.where(exposed, jnp.asarray(corner, v.dtype), out)
+
+
+# CavityConfig.poisson name -> core.precision tier of the sine transforms
+FUSED_TIERS = {"fused": "highest", "fused_bf16x3": "high",
+               "fused_bf16x1": "default"}
 
 
 def make_fused_step_fn(cfg, mm_precision: str = "highest"):
@@ -117,7 +123,7 @@ def make_fused_step_fn(cfg, mm_precision: str = "highest"):
         den = (2.0 / dx**2) * (jnp.cos(jnp.pi * kx / nx) - 1.0) + (
             2.0 / dy**2) * (jnp.cos(jnp.pi * ky / ny) - 1.0)
         den = jnp.where(valid, den, jnp.ones((), dtype))
-        mm = lambda a, b: jnp.matmul(a, b, precision=mm_precision)
+        mm = lambda a, b: precision.matmul(a, b, mm_precision)
 
         def solve_neg(wt):
             """psi with lap(psi) = -wt on the interior (walls zero)."""

@@ -2,7 +2,7 @@
 physics parameters.
 
 The reference's only concurrency is launching its 22 scripts as separate
-OS processes (run.sh:14-52). On TPU the equivalent capability is free:
+OS processes (run.sh:14-52). On an accelerator the equivalent is free:
 `jax.vmap` turns any solver step into a batched step over an ensemble of
 states (and, via in_axes, over per-member parameters such as Reynolds
 number), which XLA fuses into batched kernels on one chip — or shards
@@ -31,16 +31,13 @@ def vortex_fdm_re_sweep(cfg: vortex.VortexConfig, reynolds, dtype=None
     """Run the FDM vortex merger for a batch of Reynolds numbers in one
     batched device program (vmapped over the viscous coefficient)."""
     dtype = dtype or precision.default_dtype()
-    # re is vmapped (traced) here, so "auto" must not pick the Pallas
-    # RHS, which bakes a static re into the kernel
-    cfg = vortex._resolved(cfg, static_re=False)
+    cfg = vortex._resolved(cfg)
     res = jnp.asarray(reynolds, dtype)
     w0 = vortex.initial_vorticity(cfg, dtype)
     w0_b = jnp.broadcast_to(w0, (res.shape[0],) + w0.shape)
 
     def solve_one(w, re):
         rhs = lambda ww: vortex.fdm_rhs(ww, cfg.dx, cfg.dy, re,
-                                        impl=cfg.rhs_impl,
                                         fft_impl=cfg.fft_impl)
         step = lambda ww: ssprk3.ssprk3_step(rhs, ww, cfg.dt)
         return loop.run_steps(step, w, cfg.nt)

@@ -6,7 +6,7 @@ WENO-5 mirror-boundary reconstruction of the conservative state to both
 sides of each interface -> Euler fluxes of the reconstructed states ->
 pointwise Riemann flux -> conservative flux divergence.
 
-TPU-native layout: q is component-major (3, nx); the WENO reconstruction
+Layout: q is component-major (3, nx); the WENO reconstruction
 batches the three components along the leading axis in one fused kernel;
 the whole rhs is branchless vector code.
 
@@ -29,10 +29,6 @@ from cfd_julia_tpu.stepping import loop, ssprk3
 class EulerConfig:
     nx: int = 256
     solver: str = "roe"          # roe | hllc | rusanov
-    rhs_impl: str = "auto"       # auto (measured winner per backend —
-                                 # see _euler_rhs_choice) | xla | pallas
-                                 # (single-VMEM-block fused WENO+Riemann
-                                 # kernel, ops.pallas_kernels)
     dt: float = 1e-4
     t_final: float = 0.2
     ns: int = 20
@@ -78,37 +74,9 @@ def sod_initial_state(cfg: EulerConfig, dtype):
 _RIEMANN = {"roe": riemann.roe, "hllc": riemann.hllc, "rusanov": riemann.rusanov}
 
 
-def _euler_rhs_choice(name: str, backend=None) -> str:
-    """Resolve rhs_impl="auto" to the measured winner for the backend.
-
-    Round-5 solo re-measure at the reference nx=8192 HLLC config
-    (benchmarks/results/euler_solo_20260819T041823.log): the fused
-    Pallas WENO+Riemann kernel 19776.3 vs the XLA RHS 19660.6 steps/s —
-    pallas by +0.6% (the contended coverage rows had reversed the order
-    by 3.6%; the solo rows decide).  CPU always uses the XLA RHS
-    (Pallas would run interpreted).
-    tests/test_autoselect.py pins this resolver against winners.json."""
-    if name != "auto":
-        return name
-    import jax
-
-    backend = backend or jax.default_backend()
-    return "pallas" if backend == "tpu" else "xla"
-
-
 def make_rhs(cfg: EulerConfig):
     dx = cfg.dx
     gamma = cfg.gamma
-    rhs_impl = _euler_rhs_choice(cfg.rhs_impl)
-    if rhs_impl == "pallas":
-        from cfd_julia_tpu.ops import pallas_kernels
-
-        return lambda q: pallas_kernels.euler_rhs_fused(
-            q, gamma, dx, cfg.solver,
-            rusanov_wavespeed=cfg.rusanov_wavespeed)
-    if rhs_impl != "xla":
-        raise ValueError(f"unknown rhs_impl {cfg.rhs_impl!r} "
-                         "(auto | xla | pallas)")
     solver = _RIEMANN[cfg.solver]
     kwargs = (
         {"wavespeed": cfg.rusanov_wavespeed} if cfg.solver == "rusanov" else {}

@@ -11,7 +11,7 @@ Schemes:
 * ``cn``    Crank–Nicolson, tridiagonal per step     (cn.jl:8-26)
 * ``icp``   implicit compact Padé, 4th order in space (icp.jl:8-29)
 
-TPU-native design: the per-step tridiagonal coefficient arrays the reference
+Design: the per-step tridiagonal coefficient arrays the reference
 rebuilds every iteration (cn.jl:16-23) are constant -> precomputed once; the
 whole time loop is one `lax.scan`; CN/ICP solve their tridiagonal systems
 with parallel cyclic reduction (ops.tridiag) instead of serial Thomas.

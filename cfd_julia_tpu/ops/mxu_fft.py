@@ -1,8 +1,6 @@
 """Four-step (Bailey) FFT as MXU matmuls, shaped for the 128x128 array.
 
-XLA's TPU FFT runs on the VPU; at pseudospectral sizes (2048^2 c64 ~1 ms
-per transform, round-1 measurement) it is the entire cost of the ps23
-step.  The Cooley-Tukey split n = n1*n2 turns one length-n DFT into
+The FFT is most of the cost of the ps23 step.  The Cooley-Tukey split n = n1*n2 turns one length-n DFT into
 
     X[k2 + n2 k1] = sum_j1 F1[k1,j1] * TW[j1,k2]
                     * ( sum_j2 x[j1 + n1 j2] F2[j2,k2] )
@@ -23,8 +21,8 @@ utilization:
 
 FLOPs grow by (n1+n2)/log2(n) over a true FFT (~13x at n=2048) but at
 full MXU rate that is ~50 us of matmul per 2048^2 axis — the VPU FFT and
-the relayout passes are far slower; benchmarks/tpu_microbench.py races
-it against jnp.fft and the auto-selection stays data-driven.
+the relayout passes are far slower.  On the GPU, whether it beats cuFFT
+is not measured yet; policy.py keeps jnp.fft.
 
 Index conventions (decimation-in-time): j = j1 + n1*j2, k = k2 + n2*k1;
 the input gather is one (.., n2, n1) -> (.., n1, n2) transpose, the
@@ -44,6 +42,8 @@ import functools
 import numpy as np
 
 import jax.numpy as jnp
+
+from cfd_julia_tpu.core import precision as precision_lib
 
 
 def _split(n: int) -> tuple[int, int]:
@@ -125,10 +125,10 @@ def _apply_last(x, n: int, inverse: bool, precision: str = "highest"):
     # small stage, block-diagonal: regroup j1 = a*g + b and contract the
     # merged (b, j2) index of length g*n2 — a pure reshape, K=N=g*n2
     zm = xm.reshape(lead + (n1 // g, g * n2))
-    y = jnp.einsum("...am,mc->...ac", zm, f2blk, precision=precision)
+    y = precision_lib.einsum("...am,mc->...ac", zm, f2blk, precision)
     z = y.reshape(lead + (n1, n2)) * tw
     # big stage: contract j1, K=N=n1
-    out = jnp.einsum("ka,...ac->...kc", f1, z, precision=precision)
+    out = precision_lib.einsum("ka,...ac->...kc", f1, z, precision)
     # out[..., k1, k2] flattens to k = k2 + n2*k1 (natural order)
     return out.reshape(lead + (n,))
 
@@ -168,16 +168,16 @@ def _apply_last_real(x, n: int, precision: str):
     lead = x.shape[:-1]
     xm = jnp.swapaxes(x.reshape(lead + (n2, n1)), -1, -2)
     zm = xm.reshape(lead + (n1 // g, g * n2))
-    yr = jnp.einsum("...am,mc->...ac", zm,
-                    jnp.asarray(f2blk.real, rdtype), precision=precision)
-    yi = jnp.einsum("...am,mc->...ac", zm,
-                    jnp.asarray(f2blk.imag, rdtype), precision=precision)
+    yr = precision_lib.einsum("...am,mc->...ac", zm,
+                              jnp.asarray(f2blk.real, rdtype), precision)
+    yi = precision_lib.einsum("...am,mc->...ac", zm,
+                              jnp.asarray(f2blk.imag, rdtype), precision)
     cdtype = jnp.complex128 if rdtype == jnp.float64 else jnp.complex64
     z = (yr.reshape(lead + (n1, n2)) + 1j * yi.reshape(lead + (n1, n2))
          ).astype(cdtype) * jnp.asarray(tw, cdtype)
     n1h = n1 // 2 + 1
     f1h = jnp.asarray(f1[:n1h], z.dtype)
-    out = jnp.einsum("ka,...ac->...kc", f1h, z, precision=precision)
+    out = precision_lib.einsum("ka,...ac->...kc", f1h, z, precision)
     return out.reshape(lead + (n1h * n2,))[..., : n // 2 + 1]
 
 

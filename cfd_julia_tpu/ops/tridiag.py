@@ -4,8 +4,8 @@ implicit compact Padé scheme, and CRWENO-5 reconstruction.
 The reference uses sequential Thomas sweeps (`tdms` Common.jl:257-271,
 `tdma` Common.jl:276-287) and a cyclic Sherman–Morrison wrapper (`ctdms`,
 06_Inviscid_Burgers_CRWENO/crweno_periodic.jl:74-93). A Thomas sweep is an
-inherently serial O(n) recurrence — the single worst fit for TPU vector
-units. The TPU-native engine here is **parallel cyclic reduction (PCR)**:
+inherently serial O(n) recurrence — the single worst fit for data-parallel
+hardware. The engine here is **parallel cyclic reduction (PCR)**:
 ceil(log2 n) fully data-parallel elimination rounds of O(n) work each, all
 expressible as shifted-array arithmetic that XLA fuses and vectorizes.
 

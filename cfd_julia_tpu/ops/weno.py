@@ -107,9 +107,8 @@ def _pad_mirror_L(u):
     # stencil centred u_{j-1}; mirror ghosts u_{-k}=u_{k-1}, u_{n-1+k}=u_{n-k}
     # (Common.jl:516-569 wenoL_roe).
     n = u.shape[-1]
-    # single-element concats, not negative-stride slices: the `rev`
-    # primitive is unsupported in Pallas TPU lowering (euler_rhs_fused
-    # runs this inside a kernel; caught by the cross-lowering pre-flight)
+    # single-element concats, not negative-stride slices (a `rev`
+    # primitive lowers to a gather on some backends)
     left = jnp.concatenate([u[..., 2:3], u[..., 1:2], u[..., 0:1]],
                            axis=-1)          # u_2, u_1, u_0
     right = jnp.concatenate([u[..., -1:], u[..., -2:-1]],

@@ -1,9 +1,9 @@
 """Explicit halo exchange over the device mesh (shard_map + ppermute).
 
 The stencil half of every solver (Arakawa Jacobian, Laplacians, WENO) only
-needs a 1-2 node halo from each neighbour — the TPU-native equivalent of
+needs a 1-2 node halo from each neighbour — the device-mesh equivalent of
 the reference's ghost-cell copies (vm.jl:30-76). `halo_exchange_periodic`
-moves exactly those edges over ICI with `lax.ppermute`; the fused stencil
+moves exactly those edges over the interconnect with `lax.ppermute`; the fused stencil
 then runs on the padded local block with plain slice arithmetic.
 
 This is the manual-collective path (scales to meshes where XLA's automatic
@@ -64,7 +64,7 @@ def make_distributed_vorticity_rhs(mesh: Mesh, dx: float, dy: float,
     """shard_map'd r = -J(w,s) + lap(w)/re over a 2D-decomposed periodic
     field: ONE stacked 1-deep halo exchange for both operands (w and s
     ride a (2, bx, by) exchange — 4 ppermutes per RHS instead of 8; the
-    halo edges are tiny latency-bound ICI messages, so the collective
+    halo edges are tiny latency-bound messages, so the collective
     count is the cost).  The local stencils are ops.arakawa's — the
     rolls never wrap on the [1:-1, 1:-1] interior of a 1-halo padded
     block (arakawa.jacobian docstring), so there is exactly one

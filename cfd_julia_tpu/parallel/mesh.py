@@ -1,9 +1,9 @@
 """Device-mesh construction for 2D domain decomposition.
 
 The reference is single-process (SURVEY.md §2.5: no DP/TP/PP/SP, no
-NCCL/MPI); the TPU-native scaling story is spatial domain decomposition of
+NCCL/MPI); the scaling story here is spatial domain decomposition of
 the field arrays over a 2D `jax.sharding.Mesh` ("x", "y"), with XLA
-collectives over ICI: halo exchanges for stencils, transposes for FFTs.
+collectives (NVLink on a GPU host): halo exchanges for stencils, transposes for FFTs.
 """
 from __future__ import annotations
 

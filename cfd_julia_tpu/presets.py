@@ -94,7 +94,7 @@ PRESETS = {
            poisson2d.PoissonConfig(nx=512, ny=512, solver="redblack",
                                    problem="poly", tol=1e-9,
                                    max_iter=2_000_000, freq=10_000),
-           "15_... (TPU-native true Gauss-Seidel variant)",
+           "15_... (data-parallel true Gauss-Seidel variant)",
            "red-black GS: data-parallel true GS"),
         _p("poisson_cg", "poisson",
            poisson2d.PoissonConfig(nx=512, ny=512, solver="cg",

@@ -10,7 +10,7 @@ Two backends:
 * save_sharded/load_sharded — orbax PyTree checkpointing. Sharded
   multi-chip states save WITHOUT a host gather (each device writes its
   own shards) and restore directly into the given shardings — the
-  TPU-native path for large distributed fields.
+  path for large distributed fields.
 """
 from __future__ import annotations
 

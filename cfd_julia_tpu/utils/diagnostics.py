@@ -5,11 +5,11 @@ rates — the standard quantities for 2D-turbulence studies like the
 vortex merger (reference ch. 19-22 problems).
 
 All device-resident jnp; the radial binning is a one-hot matmul (no
-scatters — TPU rule).  The public entry points are jitted: complex
+scatters).  The public entry points are jitted: complex
 values appear only as jit-internal intermediates and every return is
 real, per the project's complex-boundary rule (ops.spectral.pack_c) —
-so they are safe to call eagerly on the remote-TPU backend with the
-solver's device-resident state."""
+so they are safe to call eagerly on the solver's device-resident
+state."""
 from __future__ import annotations
 
 from functools import partial
@@ -66,7 +66,7 @@ def energy_spectrum(w, packed: bool = False, ny: int | None = None):
     kb = jnp.arange(1, nbins + 1)
     # segment-sum binning: the one-hot einsum materialized a
     # (nbins, nx, ny/2+1) tensor — ~8.6 GB at the 2048^2 bench grid.
-    # This is a scatter-add (slow class on TPU) but it is a one-off
+    # This is a scatter-add (a slow op class) but it is a one-off
     # diagnostic, and memory beats speed here.
     r = jnp.round(kmag).astype(jnp.int32)
     r = jnp.where((r >= 1) & (r <= nbins), r, nbins + 1)

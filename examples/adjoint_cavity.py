@@ -15,9 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from cfd_julia_tpu.jaxconfig import configure_jax
+from cfd_julia_tpu.jaxconfig import configure_cache, pin_platform
 
-configure_jax()
+pin_platform()
+configure_cache()
 
 from cfd_julia_tpu.models import cavity          # noqa: E402
 from cfd_julia_tpu.stepping import loop          # noqa: E402

@@ -16,9 +16,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
 
-from cfd_julia_tpu.jaxconfig import configure_jax
+from cfd_julia_tpu.jaxconfig import configure_cache, pin_platform
 
-configure_jax()
+pin_platform()
+configure_cache()
 
 import numpy as np                                # noqa: E402
 

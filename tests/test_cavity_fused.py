@@ -14,8 +14,7 @@ from cfd_julia_tpu.models import cavity, cavity_fused
 
 
 def _ref_step(cfg):
-    c = cavity.CavityConfig(**{**cfg.__dict__, "poisson": "matmul",
-                               "rhs_impl": "xla"})
+    c = cavity.CavityConfig(**{**cfg.__dict__, "poisson": "matmul"})
     return cavity.make_step_fn(c)
 
 
@@ -114,8 +113,7 @@ def test_solve_routes_fused_poisson():
     chunk boundaries (pack/decode at each chunk)."""
     ref = cavity.solve(cavity.CavityConfig(nx=16, ny=16, dt=2e-3,
                                            t_final=0.04,
-                                           poisson="matmul",
-                                           rhs_impl="xla"))
+                                           poisson="matmul"))
     fus = cavity.solve(cavity.CavityConfig(nx=16, ny=16, dt=2e-3,
                                            t_final=0.04, poisson="fused"))
     assert np.allclose(np.asarray(fus.s), np.asarray(ref.s),

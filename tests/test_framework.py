@@ -207,8 +207,8 @@ def test_checkpoint_contract_rejections(tmp_path):
 def test_run_steps_dynamic_trajectory_and_shared_compile():
     """run_steps_dynamic(k, chunk) walks the exact run_steps(k*chunk)
     trajectory, and different window lengths hit ONE compiled executable
-    (the point: bench.py's quick 50-step and full 1000-step windows must
-    share a single multi-minute remote TPU compile)."""
+    (the point: bench.py's quick 50-step and full 1000-step windows
+    share a single compile)."""
     from cfd_julia_tpu.models import heat1d
     from cfd_julia_tpu.stepping import loop
 

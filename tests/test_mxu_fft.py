@@ -1,4 +1,4 @@
-"""Four-step MXU matmul FFT vs jnp.fft (exactness in fp64, tolerance in
+"""Four-step matmul FFT vs jnp.fft (exactness in fp64, tolerance in
 fp32), all layouts the solvers use: 1D lines, batched 2D, rfft2."""
 import numpy as np
 import pytest
@@ -62,13 +62,14 @@ def test_fp32_accuracy():
 
 
 def test_high_precision_bf16x3_bound():
-    """precision="high" lowers every einsum to the TPU's 3-pass bf16
-    (a.hi@b.hi + a.hi@b.lo + a.lo@b.hi, fp32 accumulation).  The CPU
-    backend ignores the hint, so emulate the decomposition in NumPy
-    against the same four-step constants and bound the end-to-end FFT
-    error it would introduce on chip — it must stay near fp32-FFT
-    roundoff, which is what gates the `fst_half_mxu,high` cavity and
-    ps23 `matmul,high` bench variants (bench.py)."""
+    """precision="high" lowers every einsum to the BF16_BF16_F32_X3
+    preset, 3-pass bf16 (a.hi@b.hi + a.hi@b.lo + a.lo@b.hi, fp32
+    accumulation; core.precision).  The CPU backend may run fp32
+    products instead, so emulate the decomposition in NumPy against the
+    same four-step constants and bound the end-to-end FFT error it
+    introduces on a backend that honours the preset — it must stay near
+    fp32-FFT roundoff (the `fst_half_mxu,high` cavity and ps23
+    `matmul,high` bench variants, bench.py)."""
     import ml_dtypes
 
     from cfd_julia_tpu.ops.mxu_fft import _block_factor, _consts_np, _split
@@ -79,7 +80,7 @@ def test_high_precision_bf16x3_bound():
         return hi, lo
 
     def mm3x(a, b):
-        # one real matmul at TPU precision HIGH (fp32 accumulate)
+        # one real matmul at the 3-pass tier (fp32 accumulate)
         ah, al = split_bf16(np.asarray(a, np.float32))
         bh, bl = split_bf16(np.asarray(b, np.float32))
         acc = (ah.astype(np.float64) @ bh.astype(np.float64)).astype(np.float32)

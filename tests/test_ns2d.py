@@ -145,8 +145,8 @@ def test_cavity_ghia_re1000():
 @pytest.mark.skipif(os.environ.get("CFD_SLOW") != "1",
                     reason="slow validation tier: set CFD_SLOW=1")
 def test_cavity_ghia_re1000_256():
-    """Re=1000 at 256^2 (VERDICT r4 item 10: the slow-tier grid above
-    the default-tier 128^2 run), completing the Ghia table
+    """Re=1000 at 256^2 (the slow-tier grid above the
+    default-tier 128^2 run), completing the Ghia table
     Re=100/400/1000 x {default, slow}.
 
     Extrema are checked against the Botella & Peyret (1998) N=160
@@ -267,27 +267,6 @@ def test_vortex_merger_snapshots_and_conservation():
     assert np.all(np.diff(enstrophy) < 0)
 
 
-def test_cavity_pallas_rhs_matches_xla():
-    """rhs_impl="pallas" (periodic fused Arakawa kernel, wrap rows
-    discarded by the interior slice) steps identically to the XLA RHS."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from cfd_julia_tpu.models import cavity
-    from cfd_julia_tpu.stepping import loop
-
-    outs = {}
-    for rhs in ("xla", "pallas"):
-        cfg = cavity.CavityConfig(nx=48, ny=48, dt=1e-3, rhs_impl=rhs)
-        step = cavity.make_step_fn(cfg)
-        w0 = jnp.zeros((49, 49), jnp.float64)
-        state = (w0, jnp.zeros_like(w0), jnp.zeros((), jnp.float64))
-        s = jax.jit(lambda st: loop.run_steps(step, st, 20))(state)
-        outs[rhs] = np.asarray(s[0])
-    np.testing.assert_allclose(outs["pallas"], outs["xla"],
-                               rtol=1e-11, atol=1e-11)
-
-
 @pytest.mark.parametrize("solver", ["ps23", "hybrid"])
 @pytest.mark.parametrize("fft_impl", ["xla", "matmul"])
 def test_pair_impl_rowsfirst_matches_pack(solver, fft_impl):
@@ -341,8 +320,8 @@ def test_variant_selector_typos_rejected():
                                                 poisson="fst_matml"))
     with pytest.raises(ValueError, match="unknown pair_impl"):
         vortex.VortexConfig(pair_impl="rowfirst")
-    with pytest.raises(ValueError, match="unknown rhs_impl"):
-        vortex.VortexConfig(rhs_impl="palas")
+    with pytest.raises(ValueError, match="unknown fft_precision"):
+        vortex.VortexConfig(fft_precision="hihg")
     with pytest.raises(ValueError, match="unknown fft_impl"):
         vortex.VortexConfig(fft_impl="mxu")
     with pytest.raises(ValueError, match="unknown solver"):
@@ -353,23 +332,3 @@ def test_variant_selector_typos_rejected():
     # single-chip assemble path does
     with pytest.raises(ValueError, match="bc_order"):
         cavity._wall_bc_fields(np.zeros((5, 5)), 0.1, 0.1, 3)
-
-
-def test_fst_half_xla_rhs_guard_on_tpu(monkeypatch):
-    """The [fst_half* + XLA RHS + TPU] combination is a confirmed
-    backend miscompile (docs/PERF.md round 5) and must be rejected
-    loudly at step-build time; the Pallas-RHS form stays allowed."""
-    import jax
-    import pytest as _pytest
-
-    from cfd_julia_tpu.models import cavity
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for poisson in ("fst_half", "fst_half_mxu"):
-        with _pytest.raises(ValueError, match="miscompile"):
-            cavity.make_step_fn(cavity.CavityConfig(
-                nx=32, ny=32, poisson=poisson, rhs_impl="xla"))
-    # CPU backend: both combinations stay available
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    cavity.make_step_fn(cavity.CavityConfig(
-        nx=32, ny=32, poisson="fst_half", rhs_impl="xla"))

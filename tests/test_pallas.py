@@ -1,9 +1,10 @@
-"""Pallas kernels (interpret mode on CPU) vs the XLA reference ops."""
+"""The Pallas red-black kernel (ops.rb_kernel, Triton route) in interpret
+mode on CPU, against the XLA sweep it replaces."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cfd_julia_tpu.ops import pallas_kernels
+from cfd_julia_tpu.ops import rb_kernel
 from cfd_julia_tpu.poisson import iterative
 
 
@@ -15,48 +16,15 @@ def test_redblack_fused_matches(n, tile):
     f = jnp.asarray(rng.standard_normal((n, n)), jnp.float32)
     mr, mb = iterative.color_masks(n - 1, n - 1, jnp.float32)
     ref = iterative.redblack_sweep(u, f, dx, dy, mr, mb)
-    out = pallas_kernels.redblack_sweep_fused(u, f, dx, dy, tile=tile,
-                                              interpret=True)
+    out = rb_kernel.redblack_sweep(u, f, dx, dy, block=(tile, 2 * tile),
+                                   interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=2e-6, atol=2e-6)
 
 
-@pytest.mark.parametrize("solver", ["hllc", "roe", "rusanov"])
-def test_euler_rhs_fused_matches(solver):
-    from cfd_julia_tpu.models import euler1d
-
-    cfg = euler1d.EulerConfig(nx=128, solver=solver)
-    _, q0 = euler1d.sod_initial_state(cfg, jnp.float64)
-    ref = euler1d.make_rhs(cfg)(q0)
-    out = pallas_kernels.euler_rhs_fused(q0, cfg.gamma, cfg.dx,
-                                         solver=solver, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-
-
-@pytest.mark.parametrize("n,tile", [(32, 8), (48, 16)])
-def test_arakawa_rhs_fused_matches(n, tile):
-    from cfd_julia_tpu.ops import arakawa
-
-    rng = np.random.default_rng(1)
-    dx = dy = 2 * np.pi / n
-    w = jnp.asarray(rng.standard_normal((n, n)))
-    s = jnp.asarray(rng.standard_normal((n, n)))
-    ref = arakawa.vorticity_rhs(w, s, dx, dy, 100.0)
-    out = pallas_kernels.arakawa_rhs_fused(w, s, dx, dy, 100.0, tile=tile,
-                                           interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-11, atol=1e-11)
-
-
 @pytest.mark.parametrize("iters", [2, 4, 5])
 def test_redblack_multi_sweep_per_call(iters):
-    """Multiple sweeps inside one kernel launch (validity ring shrinks by
-    one row per half-update, 2*sweeps <= GUARD) are bit-equal to iterated
-    single sweeps; iters=5 exercises the [4, 1] call schedule."""
-    import jax.numpy as jnp
-    from cfd_julia_tpu.poisson import iterative
-
+    """`iters` sweeps (one launch each) equal iterated XLA sweeps."""
     n = 64
     dx = dy = 1.0 / n
     rng = np.random.default_rng(9)
@@ -66,177 +34,50 @@ def test_redblack_multi_sweep_per_call(iters):
     ref = u
     for _ in range(iters):
         ref = iterative.redblack_sweep(ref, f, dx, dy, mr, mb)
-    out = pallas_kernels.redblack_sweeps_fused(u, f, dx, dy, iters,
-                                               interpret=True)
+    out = rb_kernel.redblack_sweeps(u, f, dx, dy, iters, interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=0, atol=1e-13)
 
 
-@pytest.mark.parametrize("shape,tile", [((65, 65), 8), ((33, 65), 16),
-                                        ((129, 129), 64)])
-def test_residual_restrict_fused_matches(shape, tile):
-    from cfd_julia_tpu.poisson import multigrid
-
-    rng = np.random.default_rng(3)
+@pytest.mark.parametrize("shape,block", [((17, 129), (8, 32)),
+                                         ((41, 23), (4, 16)),
+                                         ((65, 33), (8, 128))])
+def test_rb_kernel_block_shapes(shape, block):
+    """Tiles that do not divide the grid, in either direction, and tiles
+    wider than the grid: the clamped loads and the masked store keep the
+    sweep exact, boundary ring included."""
+    rng = np.random.default_rng(2)
     nr, nc = shape
     dx, dy = 1.0 / (nr - 1), 1.0 / (nc - 1)
     u = jnp.asarray(rng.standard_normal(shape))
     f = jnp.asarray(rng.standard_normal(shape))
-    mask = iterative.interior_mask(nr - 1, nc - 1, u.dtype)
-    ref = multigrid.restriction(
-        iterative.residual_full(f, u, dx, dy, mask))
-    out = pallas_kernels.residual_restrict_fused(u, f, dx, dy, tile=tile,
-                                                 interpret=True)
+    mr, mb = iterative.color_masks(nr - 1, nc - 1, u.dtype)
+    ref = iterative.redblack_sweep(u, f, dx, dy, mr, mb)
+    out = rb_kernel.redblack_sweep(u, f, dx, dy, block=block,
+                                   interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-11)
+                               rtol=0, atol=1e-12)
+    ring = np.ones(shape, bool)
+    ring[1:-1, 1:-1] = False
+    np.testing.assert_array_equal(np.asarray(out)[ring],
+                                  np.asarray(u)[ring])
 
 
-@pytest.mark.parametrize("shape,tile,sweeps", [((65, 65), 16, 0),
-                                               ((65, 65), 16, 2),
-                                               ((129, 65), 64, 3),
-                                               ((129, 129), 32, 4)])
-def test_prolong_correct_smooth_fused_matches(shape, tile, sweeps):
+def test_rb_kernel_never_picks_interpret_itself():
+    """Off the GPU the kernel raises unless interpret=True is asked for."""
+    u = jnp.zeros((9, 9))
+    with pytest.raises(ValueError, match="GPU only"):
+        rb_kernel.redblack_sweep(u, u, 0.1, 0.1)
+
+
+def test_mg_triton_smoother_needs_gpu():
+    """smoother='triton' reaches the kernel only on large levels; on a
+    CPU host the kernel's own check refuses it loudly."""
     from cfd_julia_tpu.poisson import multigrid
 
-    rng = np.random.default_rng(4)
-    nr, nc = shape
-    dx, dy = 1.0 / (nr - 1), 1.0 / (nc - 1)
-    u = jnp.asarray(rng.standard_normal(shape))
-    f = jnp.asarray(rng.standard_normal(shape))
-    uc = jnp.asarray(rng.standard_normal(((nr - 1) // 2 + 1,
-                                          (nc - 1) // 2 + 1)))
-    imask = iterative.interior_mask(nr - 1, nc - 1, u.dtype)
-    masks = iterative.color_masks(nr - 1, nc - 1, u.dtype)
-    ref = multigrid.smooth(u + multigrid.prolongation(uc) * imask, f,
-                           dx, dy, sweeps, masks, impl="xla")
-    out = pallas_kernels.prolong_correct_smooth_fused(
-        u, f, uc, dx, dy, sweeps, tile=tile, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-11)
-
-
-@pytest.mark.parametrize("shape,tile,sweeps", [((65, 65), 8, 1),
-                                               ((129, 65), 16, 2),
-                                               ((129, 129), 64, 3)])
-def test_smooth_residual_restrict_fused_matches(shape, tile, sweeps):
-    from cfd_julia_tpu.poisson import multigrid
-
-    rng = np.random.default_rng(5)
-    nr, nc = shape
-    dx, dy = 1.0 / (nr - 1), 1.0 / (nc - 1)
-    u = jnp.asarray(rng.standard_normal(shape))
-    f = jnp.asarray(rng.standard_normal(shape))
-    mask = iterative.interior_mask(nr - 1, nc - 1, u.dtype)
-    masks = iterative.color_masks(nr - 1, nc - 1, u.dtype)
-    ref_u = multigrid.smooth(u, f, dx, dy, sweeps, masks, impl="xla")
-    ref_fc = multigrid.restriction(
-        iterative.residual_full(f, ref_u, dx, dy, mask))
-    out_u, out_fc = pallas_kernels.smooth_residual_restrict_fused(
-        u, f, dx, dy, sweeps, tile=tile, interpret=True)
-    np.testing.assert_allclose(np.asarray(out_u), np.asarray(ref_u),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(out_fc), np.asarray(ref_fc),
-                               rtol=1e-12, atol=1e-11)
-
-
-def test_prolong_smooth_want_rms_matches():
-    """want_rms=True returns sum(residual^2) of the RETURNED u over the
-    interior — must equal the XLA residual_full of the same output (the
-    while-loop convergence check these partials replace)."""
-    from cfd_julia_tpu.poisson import multigrid
-
-    rng = np.random.default_rng(9)
-    nr, nc = 129, 65
-    dx, dy = 1.0 / (nr - 1), 1.0 / (nc - 1)
-    u = jnp.asarray(rng.standard_normal((nr, nc)))
-    f = jnp.asarray(rng.standard_normal((nr, nc)))
-    uc = jnp.asarray(rng.standard_normal((65, 33)))
-    out, ssq = pallas_kernels.prolong_correct_smooth_fused(
-        u, f, uc, dx, dy, 2, tile=16, interpret=True, want_rms=True)
-    ref = pallas_kernels.prolong_correct_smooth_fused(
-        u, f, uc, dx, dy, 2, tile=16, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-12, atol=1e-12)
-    imask = iterative.interior_mask(nr - 1, nc - 1, u.dtype)
-    r = iterative.residual_full(f, out, dx, dy, imask)
-    np.testing.assert_allclose(float(ssq), float(jnp.sum(r * r)),
-                               rtol=1e-10)
-
-
-def test_solve_fused_rms_check_matches_xla():
-    """solve() with the fused finest edge takes its convergence rms from
-    the in-kernel partials: iteration count and recorded history must
-    agree with the unfused solve's separate-residual check."""
-    import jax.numpy as jnp
-    from cfd_julia_tpu.models import poisson2d
-    from cfd_julia_tpu.poisson import multigrid
-
-    results = {}
-    for fused in ("on", "off"):
-        mgc = multigrid.MGConfig(tol=1e-5, max_cycles=20, fused=fused)
-        cfg = poisson2d.PoissonConfig(nx=128, ny=128, solver="multigrid",
-                                      problem="poly", mg=mgc)
-        _, _, _, _, ue, f = poisson2d.build_problem(cfg, jnp.float32)
-        u0 = poisson2d._dirichlet_init(ue)
-        results[fused] = multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc)
-    a, b = results["on"], results["off"]
-    assert int(a.iterations) == int(b.iterations)
-    ha = np.asarray(a.history)[: int(a.n_records), 1]
-    hb = np.asarray(b.history)[: int(b.n_records), 1]
-    # the two solves are different numerical paths (fused slab kernels
-    # vs XLA composition), so trajectories diverge by accumulated fp32
-    # rounding — after contracting ~4.5 orders they still agree to ~1%;
-    # the CHECK's consistency (per-u exactness) is test_prolong_smooth_
-    # want_rms_matches above
-    np.testing.assert_allclose(ha, hb, rtol=0.05)
-
-
-@pytest.mark.parametrize("kernel", ["rb", "descend", "ascend"])
-def test_fused_kernels_bf16_io(kernel):
-    """bf16 inputs: kernels DMA bf16 slabs (half the HBM bytes — the
-    bf16-IR MG cycle's whole point), compute fp32 in VMEM via _c32, and
-    round only at the output store.  Contract: output dtype bf16, values
-    within one bf16 ulp (~8e-3 rel of the field scale) of the fp32 path
-    run on the same (bf16-exact) inputs."""
-    from cfd_julia_tpu.poisson import multigrid
-
-    rng = np.random.default_rng(6)
-    nr = nc = 65
-    dx = dy = 1.0 / 64
-    # bf16-exact inputs so the reference path sees identical values
-    u32 = jnp.asarray(rng.standard_normal((nr, nc)),
-                      jnp.float32).astype(jnp.bfloat16).astype(jnp.float32)
-    f32 = jnp.asarray(rng.standard_normal((nr, nc)),
-                      jnp.float32).astype(jnp.bfloat16).astype(jnp.float32)
-    u16, f16 = u32.astype(jnp.bfloat16), f32.astype(jnp.bfloat16)
-
-    def close(out, ref, rel=8e-3):
-        assert out.dtype == jnp.bfloat16
-        a, b = np.asarray(out, np.float32), np.asarray(ref, np.float32)
-        np.testing.assert_allclose(a, b, rtol=0,
-                                   atol=rel * max(np.abs(b).max(), 1.0))
-
-    if kernel == "rb":
-        ref = pallas_kernels.redblack_sweeps_fused(u32, f32, dx, dy, 2,
-                                                   tile=8, interpret=True)
-        out = pallas_kernels.redblack_sweeps_fused(u16, f16, dx, dy, 2,
-                                                   tile=8, interpret=True)
-        close(out, ref)
-    elif kernel == "descend":
-        ref_u, ref_fc = pallas_kernels.smooth_residual_restrict_fused(
-            u32, f32, dx, dy, 2, tile=8, interpret=True)
-        out_u, out_fc = pallas_kernels.smooth_residual_restrict_fused(
-            u16, f16, dx, dy, 2, tile=8, interpret=True)
-        close(out_u, ref_u)
-        # residual values are 1/dx^2-scaled: compare in the fc scale
-        close(out_fc, ref_fc)
-    else:
-        uc32 = jnp.asarray(rng.standard_normal((33, 33)),
-                           jnp.float32).astype(jnp.bfloat16
-                                               ).astype(jnp.float32)
-        ref = pallas_kernels.prolong_correct_smooth_fused(
-            u32, f32, uc32, dx, dy, 2, tile=16, interpret=True)
-        out = pallas_kernels.prolong_correct_smooth_fused(
-            u16, f16, uc32.astype(jnp.bfloat16), dx, dy, 2, tile=16,
-            interpret=True)
-        close(out, ref)
+    assert multigrid._pick_smoother(64, 64, "triton", "cpu") == "xla"
+    assert multigrid._pick_smoother(4096, 4096, "triton", "cpu") == "triton"
+    u = jnp.zeros((513, 513))
+    masks = iterative.color_masks(512, 512, u.dtype)
+    with pytest.raises(ValueError, match="GPU only"):
+        multigrid.smooth(u, u, 1 / 512, 1 / 512, 1, masks, "triton")

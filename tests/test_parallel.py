@@ -124,7 +124,6 @@ def test_sharded_vortex_step_matches(mesh2d, solver):
         ref_step = vortex_model.make_spectral_step(cfg, dtype)
         ref = spectral.pack_c(ref_step(wf0))
         # the sharded step's boundary is the PACKED real Re/Im stack
-        # (complex64 jit params poison the real TPU client)
         step_sharded = sharded.make_sharded_vortex_step(cfg, mesh2d, dtype)
         out = step_sharded(jax.device_put(
             spectral.pack_c(wf0), sharded.packed_full_sharding(mesh2d)))
@@ -251,7 +250,7 @@ def _mg_problem(nx, dtype=jnp.float64):
     from cfd_julia_tpu.poisson import multigrid
 
     mgc = multigrid.MGConfig(tol=1e-8, max_cycles=30, transfers="matmul",
-                             smoother="cheb", fused="off")
+                             smoother="cheb")
     cfg = poisson2d.PoissonConfig(nx=nx, ny=nx, solver="multigrid",
                                   problem="poly", mg=mgc)
     _, _, _, _, ue, f = poisson2d.build_problem(cfg, dtype)
@@ -260,7 +259,7 @@ def _mg_problem(nx, dtype=jnp.float64):
 
 
 def test_mesh_multigrid_matches_single_device(mesh2d):
-    """The GSPMD V-cycle solve (VERDICT r4 item 5): same cfg, same
+    """The GSPMD V-cycle solve: same cfg, same
     trajectory — the ONLY difference is the mesh, so any sharding-induced
     divergence (halo handling, agglomeration edges, partitioned matmul
     transfers) shows up as a mismatch here."""
@@ -294,7 +293,7 @@ def test_mesh_multigrid_device_counts_agree():
 
 
 def test_mesh_multigrid_rejects_single_device_options(mesh2d):
-    """conv transfers / Pallas-only options are single-device; the mesh
+    """conv transfers / the bf16 cycle are single-device; the mesh
     path must reject them loudly, never silently fall back."""
     from cfd_julia_tpu.poisson import multigrid
 

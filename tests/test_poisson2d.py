@@ -293,29 +293,6 @@ def test_chebyshev_smooth_damps_high_frequencies():
                                   np.zeros_like(e1))
 
 
-def test_mg_fused_edges_match_xla_vcycle():
-    """fused="on" (Pallas level-edge kernels, interpret on CPU) converges
-    identically to the XLA path — same V-cycle math, same iteration
-    count, element-close solutions."""
-    import jax.numpy as jnp
-    import numpy as np
-    from cfd_julia_tpu.models import poisson2d
-    from cfd_julia_tpu.poisson import multigrid
-
-    results = {}
-    for fused in ("off", "on"):
-        mgc = multigrid.MGConfig(tol=1e-9, max_cycles=30, fused=fused)
-        cfg = poisson2d.PoissonConfig(nx=64, ny=64, solver="multigrid",
-                                      problem="poly", mg=mgc)
-        _, _, _, _, ue, f = poisson2d.build_problem(cfg, jnp.float64)
-        u0 = poisson2d._dirichlet_init(ue)
-        results[fused] = multigrid.solve(f, u0, cfg.dx, cfg.dy, cfg=mgc)
-    assert int(results["on"].iterations) == int(results["off"].iterations)
-    np.testing.assert_allclose(np.asarray(results["on"].u),
-                               np.asarray(results["off"].u),
-                               rtol=1e-10, atol=1e-12)
-
-
 def test_mgcg_converges_grid_independent():
     """V-cycle-preconditioned flexible CG (beyond the reference): O(10)
     iterations at both 64^2 and 128^2 (grid-independent), vs plain CG's
@@ -361,13 +338,13 @@ def test_fmg_start_cuts_vcycles():
 
 
 def test_matmul_bf16x3_precision_bound():
-    """cavity poisson='matmul_bf16x3' lowers its dots to TPU precision
-    HIGH = 3-pass bf16 (a.hi@b.hi + a.hi@b.lo + a.lo@b.hi, fp32
-    accumulation).  The CPU backend ignores precision hints, so emulate
-    the decomposition in NumPy and bound the DST-solve error it would
-    introduce on chip: it must sit well below the fp32-vs-fp64 study's
-    4e-4 psi tolerance (BASELINE.md) that gates the matching-solution-
-    error clause."""
+    """cavity poisson='matmul_bf16x3' lowers its dots to the
+    BF16_BF16_F32_X3 preset = 3-pass bf16 (a.hi@b.hi + a.hi@b.lo +
+    a.lo@b.hi, fp32 accumulation; core.precision).  The CPU backend may
+    run fp32 products instead, so emulate the decomposition in NumPy and
+    bound the DST-solve error it introduces on a backend that honours
+    the preset: it must sit well below the fp32-vs-fp64 study's 4e-4 psi
+    tolerance (BASELINE.md)."""
     import jax.numpy as jnp
     import ml_dtypes
 
@@ -414,8 +391,7 @@ def test_matmul_bf16x3_precision_bound():
     rel = np.abs(u3x - u64).max() / np.abs(u64).max()
     assert rel < 5e-5, rel
 
-    # single-pass bf16 would NOT satisfy the clause — document why the
-    # race does not include a plain-bf16 variant
+    # single-pass bf16 would NOT satisfy that bound
     def mm1x(a, b):
         ah, _ = split(np.asarray(a, np.float32))
         bh, _ = split(np.asarray(b, np.float32))
@@ -518,7 +494,7 @@ def test_matmul_refined_matches_fst_and_refines():
 def test_mg_mixed_precision_pyramid():
     """cycle_dtype='mixed' (round 5): finest level fp32, coarser levels
     bf16.  Unlike the full-bf16 pyramid (which stalls at 4096^2 because
-    the FINE-level correction rounds to bf16 — docs/PERF.md), the mixed
+    the FINE-level correction rounds to bf16 — PERF.md), the mixed
     pyramid's fine state never leaves fp32, so convergence must match
     fp32 cycle-for-cycle (+1 slack) at the bench tolerance, and the
     solution lands at the same discretization error.  The casts live on

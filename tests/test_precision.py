@@ -1,5 +1,5 @@
 """fp32-vs-fp64 tolerance matrix (SURVEY §4f): every solver family runs in
-fp32 (the TPU throughput dtype) within a known factor of its fp64 accuracy.
+fp32 (the accelerator throughput dtype) within a known factor of its fp64 accuracy.
 """
 import jax
 import jax.numpy as jnp
